@@ -2,7 +2,7 @@
 """Export a trained checkpoint as a standalone serving artifact — parity
 with the reference's ``Module.saveModule`` (SURVEY.md §2a #15): the model
 file is decoupled from optimizer state / data cursor and loads anywhere via
-``recmodels_tpu.serve.load_predictor``.
+``recmodels.serve.load_predictor``.
 
     python export.py --ckpt-dir runs/xdeepfm --out artifacts/xdeepfm
 """
@@ -25,7 +25,7 @@ def main(argv=None):
 
         jax.config.update("jax_platforms", "cpu")
 
-    from recmodels_tpu.serve import export_from_checkpoint
+    from recmodels.serve import export_from_checkpoint
 
     export_from_checkpoint(args.ckpt_dir, args.out)
     print(f"exported {args.ckpt_dir} -> {args.out}")
@@ -33,4 +33,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from recmodels.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

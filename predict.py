@@ -35,13 +35,13 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from recmodels_tpu.train.loop import Trainer, build_schema, build_source
-    from recmodels_tpu.train import metrics as metrics_lib
-    from recmodels_tpu.utils.config import TrainConfig
+    from recmodels.train.loop import Trainer, build_schema, build_source
+    from recmodels.train import metrics as metrics_lib
+    from recmodels.utils.config import TrainConfig
 
     if args.model_dir:
-        from recmodels_tpu.serve import load_predictor
-        from recmodels_tpu.utils.logging import MetricsLogger
+        from recmodels.serve import load_predictor
+        from recmodels.utils.logging import MetricsLogger
 
         with open(f"{args.model_dir}/model.json") as f:
             cfg = TrainConfig.from_json(f.read())
@@ -115,4 +115,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from recmodels.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -4,8 +4,8 @@ signal learnability."""
 import numpy as np
 import jax.numpy as jnp
 
-from recmodels_tpu.data import CriteoTSVSource, SyntheticSource, criteo_schema
-from recmodels_tpu.data.criteo import parse_criteo_lines, transform_dense
+from recmodels.data import CriteoTSVSource, SyntheticSource, criteo_schema
+from recmodels.data.criteo import parse_criteo_lines, transform_dense
 
 SCH = criteo_schema(vocab_size=1000, embed_dim=8)
 
@@ -93,7 +93,7 @@ def test_synthetic_shards_differ():
 
 def test_synthetic_signal_is_learnable():
     """Labels must correlate with the planted logit (AUC of oracle > 0.7)."""
-    from recmodels_tpu.train.metrics import auc_compute, auc_init, auc_update
+    from recmodels.train.metrics import auc_compute, auc_init, auc_update
 
     src = SyntheticSource(SCH, batch_size=4096, seed=9)
     batch = next(iter(src))

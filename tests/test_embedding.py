@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from recmodels_tpu.data.schema import criteo_schema
-from recmodels_tpu.embedding import EmbeddingCollection, dedup_segment_sum
-from recmodels_tpu.embedding.optim import sparse_adagrad, sparse_adam
+from recmodels.data.schema import criteo_schema
+from recmodels.embedding import EmbeddingCollection, dedup_segment_sum
+from recmodels.embedding.optim import sparse_adagrad, sparse_adam
 
 
 def small_schema(dims=8):
@@ -138,7 +138,7 @@ def test_sentinel_never_corrupts_row_zero():
 
 def test_dense_update_path_equals_sparse_path():
     """Auto-chosen dense Adagrad update == sorted-sparse update exactly."""
-    from recmodels_tpu.embedding.optim import choose_dense_update
+    from recmodels.embedding.optim import choose_dense_update
 
     num_rows, dim = 100, 4
     rng = np.random.default_rng(5)
@@ -161,7 +161,7 @@ def test_dense_update_path_equals_sparse_path():
 
 
 def test_dense_adam_matches_manual():
-    from recmodels_tpu.embedding.optim import dense_adam
+    from recmodels.embedding.optim import dense_adam
 
     num_rows, dim = 20, 3
     rng = np.random.default_rng(6)
@@ -185,9 +185,9 @@ def test_fused_wide_column_equivalence():
     """Engine(fuse_wide=True) == Engine(fuse_wide=False) when weights are
     copied across: identical logits and identical post-step tables."""
     import jax.numpy as jnp
-    from recmodels_tpu.data import SyntheticSource
-    from recmodels_tpu.models import build_model
-    from recmodels_tpu.train.engine import Engine
+    from recmodels.data import SyntheticSource
+    from recmodels.models import build_model
+    from recmodels.train.engine import Engine
 
     sch = criteo_schema(vocab_size=300, embed_dim=8)
     model = build_model("fm", sch)
@@ -231,7 +231,7 @@ def test_slot_sorted_ids_matches_flat_sort_exactly():
     column-order-increasing row ranges (asserted here via construction)."""
     import jax.lax
 
-    from recmodels_tpu.embedding.optim import slot_sorted_ids, slot_sorted_inverse
+    from recmodels.embedding.optim import slot_sorted_ids, slot_sorted_inverse
 
     rng = np.random.default_rng(7)
     b, ns, vocab = 512, 26, 97  # small vocab -> plenty of duplicate ids

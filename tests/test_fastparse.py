@@ -4,9 +4,9 @@ data spec, including the nasty token cases."""
 import numpy as np
 import pytest
 
-from recmodels_tpu.data import criteo_schema
-from recmodels_tpu.data import fastparse
-from recmodels_tpu.data.criteo import parse_criteo_batch, parse_criteo_lines
+from recmodels.data import criteo_schema
+from recmodels.data import fastparse
+from recmodels.data.criteo import parse_criteo_batch, parse_criteo_lines
 
 SCH = criteo_schema(vocab_size=[1000 + 37 * i for i in range(26)], embed_dim=8)
 

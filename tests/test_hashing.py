@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from recmodels_tpu.data import hashing
-from recmodels_tpu.data.schema import criteo_schema, per_slot_dims_for_vocab
+from recmodels.data import hashing
+from recmodels.data.schema import criteo_schema, per_slot_dims_for_vocab
 
 
 def test_splitmix64_reference_values():

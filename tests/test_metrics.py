@@ -4,7 +4,7 @@ histogram-AUC bias must stay below 1e-4)."""
 import numpy as np
 import jax.numpy as jnp
 
-from recmodels_tpu.train.metrics import auc_compute, auc_init, auc_merge, auc_update
+from recmodels.train.metrics import auc_compute, auc_init, auc_merge, auc_update
 
 
 def exact_auc(scores: np.ndarray, labels: np.ndarray) -> float:
@@ -72,7 +72,7 @@ def test_degenerate_single_class_does_not_nan():
 def test_accuracy_from_histograms():
     import numpy as np
     import jax.numpy as jnp
-    from recmodels_tpu.train import metrics as M
+    from recmodels.train import metrics as M
 
     rng = np.random.default_rng(0)
     logits = jnp.asarray(rng.normal(scale=2.0, size=(4096,)).astype(np.float32))
@@ -85,13 +85,12 @@ def test_accuracy_from_histograms():
 
 
 def test_counts_exact_past_2pow24():
-    """i32 histograms accumulate exactly past 2^24 per bin (VERDICT r3 weak
-    #6: f32 counts silently dropped +1 increments at full-Criteo scale).
+    """i32 histograms accumulate exactly past 2^24 per bin.
     Constructs a state at 20M counts per bin directly, then verifies a
     single additional example still moves the count and the f64 finalize
     is exact."""
     import jax.numpy as jnp
-    from recmodels_tpu.train import metrics as M
+    from recmodels.train import metrics as M
 
     big = 20_000_000  # > 2**24: f32 would absorb +1 into rounding
     st = M.AUCState(

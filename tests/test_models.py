@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from recmodels_tpu.data import SyntheticSource, criteo_schema
-from recmodels_tpu.models import MODEL_REGISTRY, build_model
-from recmodels_tpu.train.engine import Engine
+from recmodels.data import SyntheticSource, criteo_schema
+from recmodels.models import MODEL_REGISTRY, build_model
+from recmodels.train.engine import Engine
 
 SMALL = criteo_schema(vocab_size=200, embed_dim=8)
 
@@ -126,13 +126,13 @@ def test_per_slot_dims_models_run():
 
 
 def test_bench_configs_expressible_via_trainconfig():
-    """VERDICT r3 #8: every bench.py MODEL_KW config must be reproducible
+    """every bench.py MODEL_KW config must be reproducible
     from a TrainConfig (i.e. via `train.py --set`), so benched models are
     trainable from the CLI with identical architecture."""
     import importlib.util
     import os
 
-    from recmodels_tpu.utils.config import TrainConfig
+    from recmodels.utils.config import TrainConfig
 
     spec = importlib.util.spec_from_file_location(
         "bench_mod", os.path.join(os.path.dirname(__file__), "..", "bench.py")

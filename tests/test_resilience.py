@@ -17,8 +17,8 @@ import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-from recmodels_tpu.utils.config import TrainConfig
-from recmodels_tpu.train.loop import Trainer
+from recmodels.utils.config import TrainConfig
+from recmodels.train.loop import Trainer
 
 ckpt, steps = sys.argv[1], int(sys.argv[2])
 cfg = TrainConfig(model="fm", vocab_size=300, embed_dim=8, batch_size=64,

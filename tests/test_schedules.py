@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from recmodels_tpu.data import SyntheticSource, criteo_schema
-from recmodels_tpu.models import build_model
-from recmodels_tpu.train.engine import Engine
-from recmodels_tpu.train.schedules import build_lr_schedule
+from recmodels.data import SyntheticSource, criteo_schema
+from recmodels.models import build_model
+from recmodels.train.engine import Engine
+from recmodels.train.schedules import build_lr_schedule
 
 
 def test_constant_returns_float():
@@ -94,8 +94,8 @@ def test_weight_decay_shrinks_dense_params():
 
 
 def test_trainer_wires_schedules():
-    from recmodels_tpu.train.loop import Trainer
-    from recmodels_tpu.utils.config import TrainConfig
+    from recmodels.train.loop import Trainer
+    from recmodels.utils.config import TrainConfig
 
     cfg = TrainConfig(model="fm", vocab_size=500, embed_dim=8, steps=8,
                       batch_size=64, lr_schedule="cosine", warmup_steps=2,

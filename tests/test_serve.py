@@ -1,4 +1,4 @@
-"""Model export / load / forward-only serving (recmodels_tpu.serve) —
+"""Model export / load / forward-only serving (recmodels.serve) —
 parity with the reference's Module.saveModule/loadModule + predict path
 (SURVEY.md §2a #15, §3.3)."""
 
@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from recmodels_tpu.data import SyntheticSource
-from recmodels_tpu.serve import Predictor, export_model, load_predictor
-from recmodels_tpu.train.engine import Engine
-from recmodels_tpu.train.loop import Trainer, build_schema
-from recmodels_tpu.models import build_model
-from recmodels_tpu.utils.config import TrainConfig
+from recmodels.data import SyntheticSource
+from recmodels.serve import Predictor, export_model, load_predictor
+from recmodels.train.engine import Engine
+from recmodels.train.loop import Trainer, build_schema
+from recmodels.models import build_model
+from recmodels.utils.config import TrainConfig
 
 
 def _train_a_bit(cfg, steps=30):
@@ -94,7 +94,7 @@ def test_export_from_checkpoint_cli(tmp_path):
     t = Trainer(cfg)
     t.run()
 
-    from recmodels_tpu.serve import export_from_checkpoint
+    from recmodels.serve import export_from_checkpoint
 
     out = str(tmp_path / "artifact")
     export_from_checkpoint(ckpt, out)
@@ -113,7 +113,7 @@ def test_predict_cli_model_dir(tmp_path):
                       batch_size=128, log_every=50, eval_every=0,
                       ckpt_dir=ckpt, ckpt_every=10, n_devices=1)
     Trainer(cfg).run()
-    from recmodels_tpu.serve import export_from_checkpoint
+    from recmodels.serve import export_from_checkpoint
     art = str(tmp_path / "artifact")
     export_from_checkpoint(ckpt, art)
     env = dict(os.environ, PYTHONPATH=os.getcwd())

@@ -9,16 +9,16 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from recmodels_tpu.data import SyntheticSource, criteo_schema
-from recmodels_tpu.models import build_model
-from recmodels_tpu.parallel import (
+from recmodels.data import SyntheticSource, criteo_schema
+from recmodels.models import build_model
+from recmodels.parallel import (
     build_parallel_engine,
     build_parallel_steps,
     make_mesh,
     shard_state,
 )
-from recmodels_tpu.train.engine import Engine
-from recmodels_tpu.train.metrics import auc_compute, auc_init
+from recmodels.train.engine import Engine
+from recmodels.train.metrics import auc_compute, auc_init
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 (fake) devices"
@@ -138,7 +138,7 @@ def test_overflow_counting_and_zero_rows():
     except ImportError:
         from jax.experimental.shard_map import shard_map as smap
 
-    from recmodels_tpu.parallel.train_step import state_specs
+    from recmodels.parallel.train_step import state_specs
 
     dense, ids, labels = _batch(b=64, seed=2)
 
@@ -191,7 +191,7 @@ def test_per_slot_dims_sharded():
 
 
 def test_parallel_scan_matches_stepwise():
-    from recmodels_tpu.parallel import build_parallel_scan
+    from recmodels.parallel import build_parallel_scan
 
     mesh = make_mesh(8)
     model = build_model("fm", SCH)
@@ -214,29 +214,15 @@ def test_parallel_scan_matches_stepwise():
     )
 
 
-def test_sharded_packed_kernels_match_local_oracle(monkeypatch):
-    """bf16 models pack per-shard masters and run the Pallas sweep
-    gather/update ON EACH SHARD (interpret mode here). Must match the
-    LocalTables packed path, which the flagship bench already pins."""
-    from recmodels_tpu.embedding import pallas_gather, pallas_update
-
-    monkeypatch.setattr(pallas_gather, "_INTERPRET", True)
-    monkeypatch.setattr(pallas_update, "_INTERPRET", True)
-
+def test_sharded_bf16_matches_local_oracle():
+    """bf16-compute models gather rows in bf16 on each owner shard before
+    the return all_to_all; three steps must match the LocalTables path."""
     mesh = make_mesh(8)
     model = build_model("deepfm", SCH, hidden=(16,), compute_dtype=jnp.bfloat16)
     eng_s = build_parallel_engine(
         model, mesh, dense_lr=1e-2, emb_lr=5e-2, capacity_factor=4.0
     )
     state_s = shard_state(eng_s.init(jax.random.key(7)), mesh)
-    # the strategy must actually have taken the packed path
-    packed_tables = [
-        t
-        for groups in state_s.emb_params.values()
-        for t in groups.values()
-        if getattr(t, "ndim", 0) == 3
-    ]
-    assert packed_tables, "expected at least one packed [n_tiles, d8, tr] master"
     train_s, _ = build_parallel_steps(eng_s, mesh, donate=False)
 
     eng_l = Engine(model, dense_lr=1e-2, emb_lr=5e-2)
@@ -249,12 +235,8 @@ def test_sharded_packed_kernels_match_local_oracle(monkeypatch):
         state_l, ml = train_l(state_l, dense, ids, labels)
         np.testing.assert_allclose(float(ms["loss"]), float(ml["loss"]), rtol=1e-4)
 
-    def _rows(t, g):
-        t = np.asarray(pallas_gather.unpack(t, g.dim)) if t.ndim == 3 else np.asarray(t)
-        return t[: g.total_rows]
-
     for cname, coll in eng_l.collections.items():
         for g in coll.groups:
-            got = _rows(state_s.emb_params[cname][g.name], g)
-            want = _rows(state_l.emb_params[cname][g.name], g)
+            got = np.asarray(state_s.emb_params[cname][g.name])[: g.total_rows]
+            want = np.asarray(state_l.emb_params[cname][g.name])[: g.total_rows]
             np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-4)

@@ -3,9 +3,9 @@
 import numpy as np
 import jax
 
-from recmodels_tpu.utils.config import TrainConfig
-from recmodels_tpu.train.loop import Trainer
-from recmodels_tpu.utils.logging import MetricsLogger
+from recmodels.utils.config import TrainConfig
+from recmodels.train.loop import Trainer
+from recmodels.utils.logging import MetricsLogger
 
 
 def _cfg(**kw):
@@ -94,9 +94,9 @@ def test_grad_accumulation_matches_full_batch():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from recmodels_tpu.data import SyntheticSource, criteo_schema
-    from recmodels_tpu.models import build_model
-    from recmodels_tpu.train.engine import Engine
+    from recmodels.data import SyntheticSource, criteo_schema
+    from recmodels.models import build_model
+    from recmodels.train.engine import Engine
 
     sch = criteo_schema(vocab_size=500, embed_dim=8)
     for sparse_opt in ("adagrad", "adam"):
@@ -129,7 +129,7 @@ def test_grad_accumulation_matches_full_batch():
 
 
 def test_trainer_accum_steps_matches_full_batch():
-    """The PRODUCT path (VERDICT r4 missing #3): Trainer with accum_steps=4
+    """The PRODUCT path: Trainer with accum_steps=4
     must train the same trajectory as accum_steps=1 on the identical stream
     (same total batch, split into micro-batches)."""
     t1 = Trainer(_cfg(steps=30, eval_every=30, producer_workers=1))

@@ -37,8 +37,8 @@ def main(argv=None):
 
         jax.config.update("jax_platforms", "cpu")
 
-    from recmodels_tpu.utils.config import TrainConfig
-    from recmodels_tpu.train.loop import Trainer
+    from recmodels.utils.config import TrainConfig
+    from recmodels.train.loop import Trainer
 
     if args.config:
         with open(args.config) as f:
@@ -71,4 +71,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from recmodels.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())
